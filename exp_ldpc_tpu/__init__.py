@@ -1,11 +1,11 @@
-"""exp_ldpc_tpu — TPU-native framework for practical realization of general
-quantum LDPC codes.
+"""exp_ldpc_tpu — framework for practical realization of general quantum
+LDPC codes, running on NVIDIA GPUs.
 
 Covers the reference's full public surface
 (``/root/reference/python/qldpc/__init__.py:1-13``, SURVEY.md §2.2) with a
-TPU-native compute path: code construction and circuit generation run on
+device-native compute path: code construction and circuit generation run on
 host (bit-packed GF(2) + C++ kernels), sampling and decoding run as batched
-JAX/XLA/Pallas programs, and Monte-Carlo experiments shard over device
+JAX/XLA programs, and Monte-Carlo experiments shard over device
 meshes.
 """
 from .circuits.noise import circuit_noise, depolarizing_noise, trivial_noise

@@ -4,10 +4,10 @@ The reference delegates circuit execution to the external Stim C++ sampler
 (``/root/reference/python/qldpc/misc/_experiment.py:172,193-197``).  Here the
 text format stays the interchange surface, but execution is native: this
 parser compiles the text into a flat, statically-shaped op list that both the
-CPU oracle sampler (:mod:`exp_ldpc_tpu.sampler.reference`) and the JAX/TPU
+CPU oracle sampler (:mod:`exp_ldpc_tpu.sampler.reference`) and the JAX device
 sampler (:mod:`exp_ldpc_tpu.sampler.device`) consume.
 
-Compilation choices are TPU-driven:
+Compilation choices are driven by the device sampler:
   * REPEAT blocks are recorded structurally (prologue / body x count /
     epilogue) so the device sampler can lower them to ``lax.scan`` instead of
     unrolling the trace;

@@ -14,7 +14,7 @@ generic engine (:func:`_apply_channel_table`) inserts channels according to
 a declarative :class:`_ChannelTable`; the public noise models are
 three-line table constructors.
 
-The text representation is kept deliberately; the TPU sampler consumes the
+The text representation is kept deliberately; the device sampler consumes the
 rewritten text via its own structured parser
 (:mod:`exp_ldpc_tpu.circuits.ir`).
 """

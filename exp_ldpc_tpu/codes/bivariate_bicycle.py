@@ -10,7 +10,7 @@ x = S_l (x) I_m and y = I_l (x) S_m.  Extends the reference's quasicyclic
 lifted-product family (``/root/reference/python/qldpc/qc_lifted_product_code.py``
 builds the closely related one-variable circulant lifts) to the two-variable
 group algebra F2[Z_l x Z_m]; everything downstream (storage circuits, the
-batched TPU decoders, sweeps) consumes the resulting ``QuantumCode``
+batched device decoders, sweeps) consumes the resulting ``QuantumCode``
 unchanged.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ QC lifted products (reference ``/root/reference/python/qldpc/
 qc_lifted_product_code.py``), and lifted products over abelian groups
 (``Zqm`` in the reference's ``lifted_product_code.py:106-140``) — have check
 matrices that are grids of circulant blocks, possibly after a row/column
-permutation.  On TPU that structure converts message routing from gathers /
+permutation.  On the device that structure converts message routing from gathers /
 one-hot matmuls into cyclic rolls (:mod:`exp_ldpc_tpu.decoders.qc_bp`), so
 constructors that know it record it here and the decoder factory picks it up.
 

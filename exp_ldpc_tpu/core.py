@@ -1,6 +1,6 @@
 """Core CSS-code data types.
 
-TPU-native re-design of the reference's core types
+Re-design of the reference's core types
 (``/root/reference/python/qldpc/qecc_util.py:19-155``): the same frozen,
 validated containers (checks as canonical scipy CSR, logicals as dense
 read-only arrays) plus a device-oriented addition — every container can hand

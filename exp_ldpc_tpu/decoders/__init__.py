@@ -1,14 +1,12 @@
-"""Decoding stack: batched BP (XLA + Pallas backends), relay-BP ensembles,
+"""Decoding stack: batched BP (XLA formulations), relay-BP ensembles,
 OSD post-processing, spacetime/DEM matrix builders, and decode-mode drivers.
 """
 from .bp import BPDecoder, bp_decode_batch, priors_to_llr
-from .bp_bsr_shard import ShardedBSR, ShardedBSRDecoder
-from .bp_bsr_spacetime import SpacetimeBSRDecoder
 from .bp_int8 import Int8BPDecoder
 from .bposd import BPOSDDecoder
 from .flip import FlipDecoder, SmallSetFlipDecoder
 from .qc_bp import QCBPDecoder, QCStructure
-from .select import (make_bp_decoder, make_spacetime_bp_decoder,
+from .select import (bp_backend, make_bp_decoder, make_spacetime_bp_decoder,
                      qc_kwargs_for_code, qc_kwargs_single_shot)
 from .osd import osd_decode, osd_decode_batch
 from .relay_bp import RelayBPDecoder, relay_bp_decode_batch
@@ -18,20 +16,18 @@ from .tanner import TannerELL
 
 __all__ = [
     "BPDecoder",
-    "ShardedBSR",
-    "ShardedBSRDecoder",
     "Int8BPDecoder",
     "BPOSDDecoder",
     "FlipDecoder",
     "SmallSetFlipDecoder",
     "QCBPDecoder",
     "QCStructure",
+    "bp_backend",
     "make_bp_decoder",
     "make_spacetime_bp_decoder",
     "qc_kwargs_for_code",
     "qc_kwargs_single_shot",
     "SpacetimeBPDecoder",
-    "SpacetimeBSRDecoder",
     "RelayBPDecoder",
     "TannerELL",
     "SpacetimeCode",

@@ -1,6 +1,6 @@
 """Batched belief-propagation decoding on JAX/XLA.
 
-TPU-native replacement for the Cython ``ldpc`` package's ``bp_decoder``
+Device-native replacement for the Cython ``ldpc`` package's ``bp_decoder``
 (consumed by the reference at ``/root/reference/python/qldpc/misc/
 _experiment.py:2,213-229``): flooding-schedule BP over a padded-ELL Tanner
 graph with the SHOT DIMENSION fully vectorized — the reference decodes one
@@ -19,8 +19,8 @@ Per-column channel priors are supported (data vs measurement-error columns
 get different priors in every reference decode mode,
 ``misc/_experiment.py:33-35,74-76,106-108``).
 
-Layout: SCATTER-FREE dual-layout messages (XLA scatters serialize on TPU —
-measured ~40x slower than the gather path on v5e).  v2c messages live in the
+Layout: SCATTER-FREE dual-layout messages (a scatter serializes updates to
+one location, a static gather does not).  v2c messages live in the
 check-major padded layout (C, Dc, S) (S = shots on the lane axis); the check
 update is pure elementwise math in that layout; a single static gather
 (``TannerELL.vm_from_cm``) re-arranges c2v into the variable-major layout
@@ -118,13 +118,13 @@ def _dense_ops_bytes(tanner: TannerELL) -> int:
 
 @lru_cache(maxsize=32)
 def _build_dense_ops(tanner: TannerELL):
-    """0/1 message-routing operands for the MXU (matmul) formulation.
+    """0/1 message-routing operands for the matmul formulation.
 
     M (V, C*Dc): per-variable segment-sum of edge values (check-major flat);
     G (C*Dc, V): broadcast per-variable values back onto edges;
     Hd (C, V):   dense check matrix for the in-graph syndrome product;
-    mask (C, Dc) bool.  One BP iteration becomes two MXU matmuls plus
-    elementwise VPU math — no gathers or scatters at all.  Viable when the
+    mask (C, Dc) bool.  One BP iteration becomes two matmuls plus
+    elementwise math — no gathers or scatters at all.  Viable when the
     dense operands are small (`_dense_ops_bytes`); big codes take the
     gather path."""
     C, V, Dc = tanner.num_checks, tanner.num_vars, tanner.max_check_degree
@@ -146,9 +146,10 @@ def _build_dense_ops(tanner: TannerELL):
 def dense_ops_device(tanner: TannerELL):
     """(M, G, Hd) as device arrays, for passing to ``_bp_core`` as ARGS.
 
-    Multi-MB operands embedded as HLO constants make remote compiles
-    pathologically slow; threading them as runtime arguments keeps the
-    program small and lets repeated decodes reuse the same device buffers."""
+    Multi-MB operands embedded as HLO constants slow compiles down and are
+    baked into every executable; threading them as runtime arguments keeps
+    the program small and lets repeated decodes reuse the same device
+    buffers."""
     M, G, Hd, _ = _build_dense_ops(tanner)
     return jax.device_put(M), jax.device_put(G), jax.device_put(Hd)
 
@@ -181,8 +182,7 @@ def _bp_core(tanner: TannerELL, prior_llr, syndromes, method: str, max_iter: int
     if use_matmul:
         if dense_ops is not None:
             # traced args: keeps multi-MB one-hot operands OUT of the HLO
-            # constant pool (embedded constants bloat compiles badly on
-            # remote-compile backends)
+            # constant pool (embedded constants bloat compiles)
             M, G, Hd = dense_ops
             mask = _build_dense_ops(tanner)[3]
         else:
@@ -201,11 +201,14 @@ def _bp_core(tanner: TannerELL, prior_llr, syndromes, method: str, max_iter: int
         alpha = jnp.where(adaptive, 1.0 - 2.0 ** (-(it + 1).astype(jnp.float32)), ms_scaling_factor)
         c2v_cm = _check_update_cm(v2c, synd_sign, method, alpha)
         if use_matmul:
-            # masked c2v slots hold finite garbage; M/G zero-columns drop it
+            # masked c2v slots hold finite garbage; M/G zero-columns drop it.
+            # HIGHEST: these dots carry LLRs, which TF32 would otherwise round
             totals = jnp.dot(M, c2v_cm.reshape(C * Dc, S),
-                             preferred_element_type=jnp.float32)
+                             preferred_element_type=jnp.float32,
+                             precision=jax.lax.Precision.HIGHEST)
             posterior = prior_llr[:, None] + totals
-            back = jnp.dot(G, posterior, preferred_element_type=jnp.float32)
+            back = jnp.dot(G, posterior, preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
             v2c_new = jnp.where(mask3, back.reshape(C, Dc, S) - c2v_cm, _BIG)
         else:
             c2v_vm = _gather_flat(c2v_cm, tanner.vm_from_cm, 0.0)
@@ -216,6 +219,7 @@ def _bp_core(tanner: TannerELL, prior_llr, syndromes, method: str, max_iter: int
     def syndrome_ok(hard):
         """(S,) bool: H @ hard == syndrome (mod 2) per shot."""
         if use_matmul:
+            # 0/1 x 0/1 parity counts: exact in TF32, default precision
             counts = jnp.dot(Hd, hard.astype(jnp.float32),
                              preferred_element_type=jnp.float32)
             par = counts - 2.0 * jnp.floor(counts * 0.5)
@@ -277,7 +281,7 @@ class BPDecoder:
     max_iter: int = 0
     ms_scaling_factor: float = 0.0
     early_stop: bool = True
-    # "auto": MXU matmul message routing for small codes, gathers for large;
+    # "auto": one-hot matmul message routing for small codes, gathers for large;
     # "gather"/"matmul" pin the formulation (hard decisions can differ on
     # non-converged shots between formulations — f32 ordering)
     formulation: str = "auto"

@@ -1,15 +1,14 @@
 """Quantized (int8) min-sum BP — the lower-precision fast path.
 
-The f32 matmul-routing kernel (``bp.py``) sits at the v5e roofline corner:
-its arithmetic intensity (~56 FLOP/byte) almost exactly matches the ridge
-point of the f32 MXU path (~60 FLOP/byte), so halving only bytes (bf16
-messages) or only matmul cost (bf16 operands) moves nothing — both levers
-must drop together.  This kernel does that: messages are int8 fixed-point
-LLRs, the 0/1 routing operands are int8, and the routing matmuls accumulate
-in int32 on the MXU's quantized path (4x the f32 issue rate on v5e) while
-HBM traffic drops 4x.  Fixed-point min-sum with 5-6 significant bits is the
-standard construction in LDPC ASIC/FPGA decoders and is known to cost
-almost nothing in logical accuracy; the scaling factor is applied exactly
+The f32 matmul-routing kernel (``bp.py``) has an arithmetic intensity of
+~56 FLOP/byte, so halving only bytes (bf16 messages) or only matmul cost
+(bf16 operands) may move little — both levers have to drop together.  This
+kernel does that: messages are int8 fixed-point LLRs, the 0/1 routing
+operands are int8, and the routing matmuls accumulate in int32 while
+device-memory traffic drops 4x.  Nothing about its speed on the GPU has
+been measured (ROADMAP Design 2).  Fixed-point min-sum with 5-6
+significant bits is the standard construction in LDPC ASIC/FPGA decoders
+and is known to cost almost nothing in logical accuracy; the scaling factor is applied exactly
 as a rational (num / 2^shift) so the whole iteration is integer math —
 bit-exactly reproducible by the numpy oracle in ``int8_bp_oracle``.
 

@@ -33,6 +33,9 @@ class NumpyBPDecoder:
     method: str = "ps"
     max_iter: int = 0
     ms_scaling_factor: float = 0.0
+    # False: fixed-iteration flooding (every shot runs max_iter iterations
+    # and reports its final decision), the device pipeline's default
+    early_stop: bool = True
 
     def __post_init__(self):
         self.method = {"ps": "ps", "psl": "ps", "ms": "ms", "msl": "ms"}[self.method]
@@ -41,11 +44,13 @@ class NumpyBPDecoder:
 
     @classmethod
     def from_check_matrix(cls, H, *, error_rate=None, channel_probs=None, max_iter=0,
-                          bp_method="ps", ms_scaling_factor=0.0, **_ignored):
+                          bp_method="ps", ms_scaling_factor=0.0, early_stop=True,
+                          **_ignored):
         tanner = TannerELL.from_check_matrix(H)
         prior = (np.asarray(channel_probs, dtype=np.float64) if channel_probs is not None
                  else np.full(tanner.num_vars, error_rate, dtype=np.float64))
-        return cls(tanner, priors_to_llr(prior), bp_method, max_iter, float(ms_scaling_factor))
+        return cls(tanner, priors_to_llr(prior), bp_method, max_iter,
+                   float(ms_scaling_factor), early_stop)
 
     def decode_batch(self, syndromes: np.ndarray):
         """(S, C) syndromes -> (hard (S,V), posterior (S,V), converged (S,), iters (S,))."""
@@ -66,7 +71,7 @@ class NumpyBPDecoder:
         adaptive = self.ms_scaling_factor == 0.0
 
         for it in range(self.max_iter):
-            if conv.all():
+            if self.early_stop and conv.all():
                 break
             alpha = (1.0 - 2.0 ** -(it + 1)) if adaptive else self.ms_scaling_factor
             # check update
@@ -96,6 +101,10 @@ class NumpyBPDecoder:
             hard_new = (posterior <= 0).astype(np.uint8)
             bits = np.where(t.chk_mask[:, :, None], hard_new[t.chk_vars], 0).astype(np.int32)
             ok = np.all(bits.sum(axis=1) % 2 == synd, axis=0)
+            if not self.early_stop:
+                hard, post, conv = hard_new, posterior, ok
+                iters[:] = it + 1
+                continue
             upd = ~conv
             hard[:, upd] = hard_new[:, upd]
             post[:, upd] = posterior[:, upd]

@@ -55,10 +55,9 @@ class BPOSDCorrect:
         self._checks = code.checks.x if basis == "x" else code.checks.z
         self._spacetime_code = SpacetimeCode(self._checks, rounds)
         prior_vec = _spacetime_prior(self._spacetime_code, data_prior, meas_prior)
-        # structured spacetime BP via kernel selection: the dense
-        # formulation (decoders/spacetime_bp.py) for small codes, the
-        # streamed BSR kernel (decoders/bp_bsr_spacetime.py) for large ones
-        # — OSD post-processing still runs on the full spacetime matrix
+        # structured spacetime BP (decoders/spacetime_bp.py) through the
+        # selection module; OSD post-processing still runs on the full
+        # spacetime matrix
         from .select import make_spacetime_bp_decoder
 
         bp = make_spacetime_bp_decoder(

@@ -7,7 +7,7 @@ reference parity:
 
   * ``FlipDecoder`` — Gallager/Sipser–Spielman parallel bit-flip for
     CLASSICAL codes: flip every bit for which a strict majority of its
-    checks is unsatisfied.  One iteration is two MXU matmuls (unsat counts,
+    checks is unsatisfied.  One iteration is two matmuls (unsat counts,
     syndrome refresh) — no gathers, no scatters, shots fully vectorized.
   * ``SmallSetFlipDecoder`` — Leverrier–Tillich–Zémor small-set-flip for
     CSS quantum codes (arXiv:1504.00822 algorithm; the reference has no
@@ -69,6 +69,7 @@ def _flip_core(Hd, deg, syndromes, max_iter: int):
 
     def body(state):
         it, e, s, done, conv, iters = state
+        # 0/1 x 0/1 counts: exact in TF32, default precision
         unsat = jnp.dot(Hd.T, s, preferred_element_type=jnp.float32)  # (V, S)
         flip = (2.0 * unsat > deg[:, None]).astype(jnp.float32)
         active = ~done

@@ -7,14 +7,12 @@ products (``codes/qc_lifted.py``, reference
 lifted products (abelian ``Zqm`` groups in ``codes/lifted.py``).  Their
 check matrices are grids of circulant blocks — every block is a sum of
 shifted identities x^s — so message routing between the check-major and
-variable-major layouts is a CYCLIC SHIFT, which on TPU is a lane/sublane
-rotation: nearly free, no gathers, no one-hot matmuls.
+variable-major layouts is a CYCLIC SHIFT: a contiguous rotation, no
+gathers, no one-hot matmuls.
 
-The generic formulations in :mod:`.bp` pay heavily here: the one-hot MXU
-routing does O(n·C·Dc) FLOPs per shot-iteration against the O(E) real work
-(measured 3.8M iter·shots/s on the QC-LP [[1054,140]]), and the
-static-gather path collapses on large codes (97k/s on the n=4862 cyclic
-LP).  This kernel stores one (l1·l2, S) message plane per circulant
+The generic formulations in :mod:`.bp` pay heavily here: the one-hot
+routing does O(n·C·Dc) FLOPs per shot-iteration against the O(E) real work,
+and the static-gather path moves every message through an index table.  This kernel stores one (l1·l2, S) message plane per circulant
 MONOMIAL and runs the identical flooding math (same
 :func:`~exp_ldpc_tpu.decoders.bp._check_update_cm` check kernel, same
 per-shot early-stop freezing) with rolls as the only data movement —

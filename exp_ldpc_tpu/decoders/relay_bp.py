@@ -19,7 +19,7 @@ arXiv:2507.00254) replaces it with ENSEMBLES of memory-BP runs:
   * each shot keeps the first syndrome-satisfying solution it encounters
     (optionally continuing to collect several and keeping the lightest).
 
-Everything is elementwise + the same MXU/gather routing as
+Everything is elementwise + the same matmul/gather routing as
 :mod:`exp_ldpc_tpu.decoders.bp`, so the whole ensemble decodes the full shot
 batch in ONE fused XLA program — no host round-trips, no per-shot loops.
 """
@@ -80,22 +80,27 @@ def _relay_core(tanner: TannerELL, prior_llr, syndromes, gammas, method: str,
     alpha = jnp.float32(ms_scaling_factor)
     adaptive = ms_scaling_factor == 0.0
 
+    # HIGHEST on the routing dots: they carry LLRs, which TF32 would
+    # otherwise round
     def totals_of(c2v):
         if use_matmul:
             return jnp.dot(M, c2v.reshape(C * Dc, S),
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
         c2v_vm = _gather_flat(c2v, tanner.vm_from_cm, 0.0)
         return jnp.sum(c2v_vm, axis=1)
 
     def route_back(lam, c2v):
         if use_matmul:
-            back = jnp.dot(G, lam, preferred_element_type=jnp.float32)
+            back = jnp.dot(G, lam, preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
             return jnp.where(mask3, back.reshape(C, Dc, S) - c2v, _BIG)
         return jnp.where(
             jnp.asarray(tanner.chk_mask)[:, :, None], lam[chk_vars] - c2v, _BIG)
 
     def syndrome_ok(hard):
         if use_matmul:
+            # 0/1 x 0/1 parity counts: exact in TF32, default precision
             counts = jnp.dot(Hd, hard.astype(jnp.float32),
                              preferred_element_type=jnp.float32)
             par = counts - 2.0 * jnp.floor(counts * 0.5)

@@ -1,15 +1,13 @@
-"""Decoder-formulation selection: route each code to its fastest kernel.
+"""Decoder-formulation and platform selection.
 
 The reference delegates every code to one Cython BP implementation
-(``/root/reference/python/qldpc/misc/_experiment.py:51-59``); on TPU the
-right kernel depends on size and structure — measured on v5e
-(``artifacts/bp_families_v5e.jsonl``): the dense one-hot MXU matmul
-formulation wins for tiny codes (< ~1 MiB of routing operands), the fused
-BSR tile kernel (:mod:`.bp_bsr`) wins everywhere above that, and the
-quasi-cyclic roll kernel (:mod:`.qc_bp`) / generic
-:class:`~exp_ldpc_tpu.decoders.bp.BPDecoder` formulations serve as
-fallbacks where the BSR kernel cannot run (CPU backends, VMEM).  This
-module is the one place that decision lives.
+(``/root/reference/python/qldpc/misc/_experiment.py:51-59``); here the
+formulation depends on size and structure: the dense one-hot matmul
+formulation for small codes, the quasi-cyclic roll kernel (:mod:`.qc_bp`)
+for large block-circulant codes, and the static-gather formulation of
+:class:`~exp_ldpc_tpu.decoders.bp.BPDecoder` for everything else.  This
+module is the one place those decisions live, and :func:`bp_backend` is the
+one place the platform is decided.
 """
 from __future__ import annotations
 
@@ -18,31 +16,50 @@ from typing import Dict, Optional
 import numpy as np
 from scipy import sparse
 
+from ..utils.compile_cache import enable_compilation_cache
 from .bp import BPDecoder, _dense_ops_bytes
-from .bp_bsr import BSRBPDecoder, fits_bsr
 from .qc_bp import QCBPDecoder
 from .tanner import TannerELL
 
-__all__ = ["make_bp_decoder", "make_spacetime_bp_decoder",
+__all__ = ["bp_backend", "make_bp_decoder", "make_spacetime_bp_decoder",
            "qc_kwargs_for_code", "qc_kwargs_single_shot"]
 
 # above this monomial count the unrolled roll kernel's compile time and HLO
 # size are not worth it; fall back to the generic formulations
 _QC_MAX_MONOMIALS = 256
 
-# below this dense-operand size the generic MXU matmul formulation beats the
-# roll kernel (v5e: gross code 232M vs 158M iter*shots/s at 0.5 MiB operands;
-# QC-LP [[1054,140]] flips to 3.8M vs 19.8M at 30 MiB —
-# artifacts/bp_families_v5e.jsonl)
+# below this dense-operand size the generic one-hot matmul formulation is
+# kept over the roll kernel.  The crossover was fitted on the previous
+# accelerator and is not measured on the GPU.
 _QC_PREFER_DENSE_OPS_LIMIT = 4 * 2**20
 
-# from this dense-operand size up, the fused BSR tile kernel beats every
-# other formulation measured (v5e, artifacts/bp_families_v5e.jsonl):
-# HGP-225 at 1.3 MiB: 142M vs 72M matmul; HGP-625 at 10 MiB: 44M vs 16M;
-# QC-LP [[1054,140]] at 30 MiB: 33M vs 20M roll vs 3.8M matmul; HGP-2025 at
-# 105 MiB: 14M vs 2.4M.  Below it the dense matmul still wins (gross code,
-# 0.5 MiB: 232M vs 195M BSR) — the crossover sits between those points.
-_BSR_MIN_OPS_BYTES = 2**20
+# platforms the device formulations are built for
+_BACKENDS = {"cpu": "xla", "gpu": "triton"}
+
+
+def bp_backend(devices=None) -> str:
+    """The BP backend for the platform of ``devices`` (default: all of
+    ``jax.devices()``): ``"xla"`` or ``"triton"``.
+
+    On the CPU every decode runs through XLA (what the tests use).  On the
+    GPU the fixed-iteration spacetime-BP stage of the pipeline runs the
+    Pallas-Triton kernel (``decoders/spacetime_bp_triton.py``), which beat
+    the XLA core end to end on an H100 (``PERF.md``), for base codes it
+    fits; everything else runs through XLA.  Any other platform raises
+    rather than running formulations nobody has checked there; a kernel
+    that fails to compile raises too, it does not fall back."""
+    import jax
+
+    devices = jax.devices() if devices is None else list(devices)
+    platforms = {d.platform for d in devices}
+    if len(platforms) != 1:
+        raise ValueError(f"mixed device platforms {sorted(platforms)}")
+    (platform,) = platforms
+    if platform not in _BACKENDS:
+        raise ValueError(
+            f"no BP backend for platform {platform!r}; "
+            f"supported: {sorted(_BACKENDS)}")
+    return _BACKENDS[platform]
 
 
 def make_bp_decoder(
@@ -55,50 +72,21 @@ def make_bp_decoder(
 ):
     """BP decoder with automatic QC routing.
 
-    On TPU backends, codes with >= ~1 MiB of dense routing operands build
-    the fused BSR tile kernel (fastest measured formulation from that size
-    up; QC layout permutations improve its tile locality).  Otherwise,
-    with ``qc_dims`` given (block-circulant layout, optionally up to the
+    With ``qc_dims`` given (block-circulant layout, optionally up to the
     new->old ``qc_check_perm``/``qc_var_perm``), the roll-based
     :class:`QCBPDecoder` when the monomial count is in the kernel's sweet
-    spot; else the generic :class:`BPDecoder`.  All expose the same
-    ``decode_batch`` contract.
-
-    Auto-selection never picks the int8 BSR message path — it is a
-    measured regression vs bf16 at equal accuracy on every family
-    (``artifacts/bp_families_v5e.jsonl``) and is kept for ablations only;
-    callers must opt in explicitly via ``msg_dtype="int8"``.
-    """
-    if opts.get("msg_dtype") == "int8":
-        import warnings
-
-        warnings.warn(
-            "msg_dtype='int8' is an ablation-only path: measured slower "
-            "than bf16 at equal accuracy on every tested family "
-            "(artifacts/bp_families_v5e.jsonl)",
-            stacklevel=2,
-        )
+    spot and the dense operands are large; else the generic
+    :class:`BPDecoder` (one-hot matmul or gather formulation, by operand
+    size).  Both expose the same ``decode_batch`` contract."""
+    bp_backend()
+    enable_compilation_cache()
     H = sparse.csr_matrix(H)
-    tanner = TannerELL.from_check_matrix(H)
-    ops_bytes = _dense_ops_bytes(tanner)
-    if ops_bytes >= _BSR_MIN_OPS_BYTES and _bsr_usable(tanner):
-        # the fused BSR tile kernel dominates from ~1 MiB of dense operands
-        # up (142M vs 72M on HGP-225, 8.7x on QC-LP [[1054,140]]; table at
-        # _BSR_MIN_OPS_BYTES).  QC layout permutations, when known, improve
-        # its tile locality.  Note the BSR kernel's early exit is GLOBAL
-        # (all shots), vs per-shot freezing in the other formulations —
-        # statistically equivalent (BP fixed points), documented in bp_bsr.
-        return BSRBPDecoder.from_check_matrix(
-            H, check_perm=qc_check_perm, var_perm=qc_var_perm, **opts
-        )
     if qc_dims is not None:
+        tanner = TannerELL.from_check_matrix(H)
         L = int(np.prod(qc_dims))
         num_monomials = H.nnz // L
         if (num_monomials <= _QC_MAX_MONOMIALS
-                and ops_bytes > _QC_PREFER_DENSE_OPS_LIMIT):
-            # BSR not available (CPU backend or VMEM): the roll kernel is
-            # the next-best structured formulation (19.8M vs 3.8M matmul on
-            # QC-LP [[1054,140]])
+                and _dense_ops_bytes(tanner) > _QC_PREFER_DENSE_OPS_LIMIT):
             return QCBPDecoder.from_check_matrix(
                 H, qc_dims, check_perm=qc_check_perm, var_perm=qc_var_perm, **opts
             )
@@ -106,67 +94,20 @@ def make_bp_decoder(
 
 
 def make_spacetime_bp_decoder(H, num_rounds: int, **opts):
-    """Multi-round spacetime BP with automatic kernel selection.
+    """Multi-round structured spacetime BP
+    (:class:`~exp_ldpc_tpu.decoders.spacetime_bp.SpacetimeBPDecoder`).
 
     ``H`` is the BASE check matrix; ``num_rounds`` the measurement rounds.
-    Small codes keep the dense structured formulation
-    (:class:`~exp_ldpc_tpu.decoders.spacetime_bp.SpacetimeBPDecoder` —
-    its one-hot operand pair is the BASE code's, batched over rounds, so
-    the flat-decode crossover measured in
-    ``artifacts/bp_families_v5e.jsonl`` carries over); above the same
-    ~1 MiB operand threshold on a TPU backend, the streamed
-    :class:`~exp_ldpc_tpu.decoders.bp_bsr_spacetime.SpacetimeBSRDecoder`
-    (round blocks streamed through VMEM over ONE base-code tile schedule)
-    — the only device formulation whose memory does not grow with
-    rounds·n.  The reference delegates every size to serial Cython BP on
-    the assembled spacetime matrix
-    (``/root/reference/python/qldpc/misc/_experiment.py:62-83``).
-    """
-    from .bp_bsr_spacetime import SpacetimeBSRDecoder
+    The core picks the one-hot matmul routing for small base codes and the
+    static-gather routing for large ones (``bp.resolve_use_matmul``), whose
+    memory grows only linearly in rounds·n.  The reference delegates every
+    size to serial Cython BP on the assembled spacetime matrix
+    (``/root/reference/python/qldpc/misc/_experiment.py:62-83``)."""
     from .spacetime_bp import SpacetimeBPDecoder
 
-    H = sparse.csr_matrix(H)
-    tanner = TannerELL.from_check_matrix(H)
-    ops_bytes = _dense_ops_bytes(tanner)
-    if (num_rounds >= 1 and ops_bytes >= _BSR_MIN_OPS_BYTES
-            and (opts.get("interpret") or _stbsr_usable(tanner))):
-        return SpacetimeBSRDecoder.from_check_matrix(H, num_rounds, **opts)
-    opts.pop("interpret", None)
+    bp_backend()
+    enable_compilation_cache()
     return SpacetimeBPDecoder.from_check_matrix(H, num_rounds, **opts)
-
-
-def _stbsr_usable(tanner: TannerELL) -> bool:
-    """Streamed spacetime BSR needs a real TPU backend + per-call VMEM."""
-    import jax
-
-    from .bp_bsr_spacetime import fits_stbsr
-
-    if not fits_stbsr(tanner, 1):
-        return False
-    try:
-        return all(d.platform == "tpu" for d in jax.devices())
-    except RuntimeError:
-        return False
-
-
-def _bsr_usable(tanner: TannerELL) -> bool:
-    """BSR needs a real TPU backend (no Mosaic CPU lowering) + VMEM room.
-
-    Codes rejected here for VMEM (roughly > 3000 tiles / n ≳ 40k) are
-    still decodable through the check-partition split path —
-    :class:`exp_ldpc_tpu.decoders.bp_bsr_shard.ShardedBSRDecoder` with
-    ``auto_num_shards`` — demonstrated at n=40,000 on one chip
-    (``scripts/demo_capacity_shard.py``, DESIGN.md §12b); it requires an
-    explicit choice of shard count/mesh, so auto-selection does not
-    route there."""
-    import jax
-
-    if not fits_bsr(tanner):
-        return False
-    try:
-        return all(d.platform == "tpu" for d in jax.devices())
-    except RuntimeError:
-        return False
 
 
 def qc_kwargs_for_code(code, sector: str = "z") -> Dict:

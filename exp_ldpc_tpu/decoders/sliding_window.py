@@ -24,7 +24,7 @@ implements the general overlapping-window scheme:
 
 Every window reuses ONE jit-compiled batched decoder (fixed shapes), so the
 stream decodes as ``ceil(rounds/c)`` fused device calls regardless of length
-— the TPU analog of a real-time streaming decoder.
+— the device analog of a real-time streaming decoder.
 """
 from __future__ import annotations
 

@@ -5,13 +5,12 @@ The spacetime check matrix (``decoders/spacetime.py``, reference
 copies of the base H on the diagonal plus measurement-error columns of
 degree 2 linking consecutive rounds.  The generic BP kernel treats it as one
 big Tanner graph — its one-hot routing operands grow with (rounds+1)² and the
-MXU multiplies mostly structural zeros.  This module runs the SAME flooding
+matrix products multiply mostly structural zeros.  This module runs the SAME flooding
 BP (bit-for-bit the same message math and schedule) in the factored form:
 
   * data-column messages live in a (B, r, Dc, S) tensor (B = rounds+1 round
     blocks); the variable update is the BASE code's small one-hot matmul
-    pair, batched over the round axis — an (n, r·Dc) × (B·r·Dc, S) einsum
-    the MXU tiles well;
+    pair, batched over the round axis — an (n, r·Dc) × (B·r·Dc, S) einsum;
   * each check gets TWO extra message slots for its incident measurement-
     error variables (previous/next round); the check update is the standard
     kernel on (B·r, Dc+2, S);
@@ -19,9 +18,7 @@ BP (bit-for-bit the same message math and schedule) in the factored form:
     elementwise math — no routing at all.
 
 Work per iteration drops from O((B·n + R·r) · B·r·Dc') to B × the base-code
-cost, an ~(rounds+1)× FLOP cut over the generic matmul formulation (measured
-~4x wall-clock on the 4-round HGP-225 spacetime program, scripts/
-exp_bf16_routing.py vs bench_spacetime.py).
+cost, an ~(rounds+1)× FLOP cut over the generic matmul formulation.
 
 Column/row conventions match ``SpacetimeCode`` exactly: rows are round-major
 blocks of r checks; columns are B·n data bits (round-major) followed by R·r
@@ -79,10 +76,10 @@ def _stbp_core(
     (Vst, S), converged (S,) bool, iters (S,) int32).
 
     msg_dtype "bfloat16" stores messages in bf16 (accumulations stay f32):
-    the spacetime check update is HBM-bandwidth-bound, so halving the
-    streamed bytes buys ~1.4x wall-clock (measured, scripts/
-    exp_bf16_messages.py) at the cost of bit-exactness with the f32 oracle —
-    statistically LER-neutral for min-sum (tests/test_spacetime_bp.py).
+    the spacetime check update streams the message tensor through device
+    memory each iteration, so this halves its bytes at the cost of
+    bit-exactness with the f32 oracle — statistically LER-neutral for
+    min-sum (tests/test_spacetime_bp.py).
     """
     R = num_rounds
     B = R + 1
@@ -136,12 +133,15 @@ def _stbp_core(
 
         # data-variable update: base-code routing, batched over round blocks
         if use_matmul:
+            # HIGHEST: these dots carry LLRs, which TF32 would otherwise round
             flat = c2v_data.reshape(B, r * Dc, S)
-            totals = jnp.einsum("vk,bks->bvs", M, flat, preferred_element_type=jnp.float32)
+            totals = jnp.einsum("vk,bks->bvs", M, flat, preferred_element_type=jnp.float32,
+                                precision=jax.lax.Precision.HIGHEST)
             posterior_d = data_llr[:, :, None] + totals  # (B, n, S) f32
             back = jnp.einsum(
                 "kv,bvs->bks", G, posterior_d.astype(mdt),
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
             v2c_data_new = jnp.where(
                 mask4, back.astype(mdt).reshape(B, r, Dc, S) - c2v_data, mdt.type(_BIG)
@@ -167,6 +167,7 @@ def _stbp_core(
     def syndrome_ok(hard_d, hard_m):
         """(S,) bool: spacetime parity of the estimate equals the syndrome."""
         if use_matmul:
+            # 0/1 x 0/1 parity counts: exact in TF32, default precision
             counts = jnp.einsum(
                 "cv,bvs->bcs", Hd, hard_d.astype(jnp.float32),
                 preferred_element_type=jnp.float32,
@@ -248,32 +249,14 @@ class SpacetimeBPDecoder:
     formulation: str = "auto"
     msg_dtype: str = "float32"
     # per-shot early stop freezes each shot at first convergence (ldpc
-    # semantics); False = fixed-iteration flooding, which additionally
-    # unlocks the VMEM-resident Pallas kernel under backend="auto" on TPU
+    # semantics); False = fixed-iteration flooding
     early_stop: bool = True
-    backend: str = "auto"  # "auto" | "xla" | "pallas"
 
     def __post_init__(self):
         method = {"ps": "ps", "psl": "ps", "ms": "ms", "msl": "ms"}.get(self.method)
         if method is None:
             raise ValueError(f"unknown bp method {self.method!r}")
         object.__setattr__(self, "method", method)
-
-    def _use_pallas(self) -> bool:
-        from .spacetime_bp_pallas import fits_stbp_pallas
-
-        if self.backend == "xla" or self.early_stop:
-            if self.backend == "pallas" and self.early_stop:
-                raise ValueError("backend='pallas' requires early_stop=False")
-            return False
-        fits = fits_stbp_pallas(self.tanner, self.num_rounds, 128)
-        if self.backend == "pallas":
-            if not fits:
-                raise ValueError("spacetime program too large for the Pallas kernel")
-            return True
-        import jax as _jax
-
-        return fits and _jax.devices()[0].platform == "tpu"
 
     @classmethod
     def from_check_matrix(
@@ -289,7 +272,6 @@ class SpacetimeBPDecoder:
         formulation: str = "auto",
         msg_dtype: str = "float32",
         early_stop: bool = True,
-        backend: str = "auto",
         **_ignored,
     ) -> "SpacetimeBPDecoder":
         """H is the BASE check matrix (r, n); priors are per spacetime column
@@ -318,23 +300,12 @@ class SpacetimeBPDecoder:
             formulation=formulation,
             msg_dtype=msg_dtype,
             early_stop=early_stop,
-            backend=backend,
         )
 
     def decode_batch(self, syndromes: np.ndarray):
         """(S, (R+1)·r) syndromes -> (hard (S, Vst), posterior (S, Vst),
         converged (S,), iters (S,))."""
         syndromes = np.asarray(syndromes, dtype=np.uint8)
-        if self._use_pallas():
-            from .spacetime_bp_pallas import stbp_pallas_fixed
-
-            hard, post, conv, iters = stbp_pallas_fixed(
-                self.tanner, self.num_rounds, jnp.asarray(self.prior_llr),
-                jnp.asarray(syndromes.T), self.method, self.max_iter,
-                float(self.ms_scaling_factor),
-            )
-            return (np.asarray(hard).T, np.asarray(post).T,
-                    np.asarray(conv), np.asarray(iters))
         dense_ops = (
             dense_ops_device(self.tanner)
             if resolve_use_matmul(self.tanner, self.formulation)

@@ -13,8 +13,8 @@ padded index entries point at that slot, so gathers read a neutral element
 (+inf for min-trees, 0 for sums) and scatters harmlessly overwrite it.  All
 shapes are static — no data-dependent control flow reaches XLA.
 
-For the scatter-free BP formulation (XLA scatters serialize on TPU; gathers
-ride the fast row-copy path) the two layouts are additionally linked by flat
+For the scatter-free BP formulation (a scatter serializes updates to one
+location; a static gather does not) the two layouts are additionally linked by flat
 PERMUTATION maps: ``vm_from_cm[v, j]`` is the flattened check-major slot
 ``c*Dc + i`` holding the same edge as variable-major slot ``(v, j)`` (or the
 one-past-end pad index ``C*Dc`` for padded slots), and symmetrically

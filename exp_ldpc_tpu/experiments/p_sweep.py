@@ -15,19 +15,21 @@ failures) — optionally sharded over a device mesh by the caller via
 """
 from __future__ import annotations
 
+import csv
 import json
 import sys
+import time
 from argparse import ArgumentParser
 from datetime import datetime
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..decoders.drivers import add_bposd_args, load_code, run_simulation, unpack_bposd_args
 from ..utils.observability import get_logger
 
-__all__ = ["p_sweep", "p_sweep_main", "parse_sweep_spec"]
+__all__ = ["p_sweep", "p_sweep_main", "parse_sweep_spec", "write_csv"]
 
 _log = get_logger("p_sweep")
 
@@ -88,7 +90,11 @@ class _PipelineSweeper:
             self.n_devices = mesh_devices
         self.pipe = None
 
-    def run_point(self, p_ph: float, samples: int, seed: Optional[int]):
+    def run_point(self, p_ph: float, samples: int, seed: Optional[int],
+                  with_memory: bool = False):
+        """-> (failures, shots, stats): stats holds the OSD-decoded shot
+        count and the batch times; ``with_memory`` adds the compiled step's
+        memory analysis and the device's peak bytes in use."""
         import jax
 
         from ..parallel.pipeline import StorageDecodePipeline
@@ -124,26 +130,41 @@ class _PipelineSweeper:
         per_batch = self.shots_per_device * self.n_devices
         n_batches = max(1, -(-samples // per_batch))
         key = jax.random.PRNGKey(seed if seed is not None else 0)
-        failures = total = 0
+        failures = total = osd = 0
+        batch_s = []
         for k in jax.random.split(key, n_batches):
-            f, s, _osd = self.pipe.run_bposd(k)
+            t0 = time.perf_counter()
+            f, s, o = self.pipe.run_bposd(k)
+            batch_s.append(time.perf_counter() - t0)
             failures += f
             total += s
-        return failures, total
+            osd += o
+        stats = {"osd_decoded": osd, "batches": n_batches,
+                 "first_batch_s": batch_s[0],
+                 "steady_batch_s": (float(np.mean(batch_s[1:]))
+                                    if n_batches > 1 else None)}
+        if with_memory:
+            stats["memory_analysis"] = self.pipe.memory_analysis()
+            stats["peak_bytes_in_use"] = (
+                jax.devices()[0].memory_stats() or {}).get("peak_bytes_in_use")
+        return failures, total, stats
 
 
 def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_prior,
             seed=None, use_device_sampler=None, checkpoint: Optional[Path] = None,
-            pipeline: Optional[dict] = None, **kwargs):
-    """Sweep physical error rates; returns a pandas DataFrame of records.
+            pipeline: Optional[dict] = None,
+            point_stats: Optional[List[Dict]] = None, **kwargs) -> List[Dict]:
+    """Sweep physical error rates; returns one record (dict) per point, in
+    the reference's CSV schema (see :func:`write_csv`).
 
     With ``checkpoint`` set, completed points are streamed to a JSONL file
     and a restarted sweep resumes after the last completed point.  With
     ``pipeline`` set (dict of ``mesh_devices``/``shots_per_device``), the
-    ``bposd`` mode runs through the fused mesh-sharded device pipeline.
+    ``bposd`` mode runs through the fused mesh-sharded device pipeline;
+    a ``point_stats`` list then receives each point's OSD count, batch
+    times and device memory (kept out of the records, whose schema is the
+    reference's).
     """
-    import pandas as pd
-
     data = []
     done_p = set()
     if checkpoint is not None:
@@ -179,8 +200,12 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
             continue
         time_start = datetime.now()
         if sweeper is not None:
-            failures, total = sweeper.run_point(
-                p_ph, samples, seed + i if seed is not None else None)
+            failures, total, stats = sweeper.run_point(
+                p_ph, samples, seed + i if seed is not None else None,
+                with_memory=point_stats is not None)
+            _log.info("p=%g: %s", p_ph, stats)
+            if point_stats is not None:
+                point_stats.append({"p_ph": p_ph, **stats})
         else:
             logical_values = run_simulation(
                 samples,
@@ -215,7 +240,21 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
             with checkpoint.open("a") as f:
                 json.dump({k: _jsonable(v) for k, v in point.items()}, f)
                 f.write("\n")
-    return pd.DataFrame.from_records(data)
+    return data
+
+
+def write_csv(records: List[Dict], out) -> None:
+    """Write sweep records as CSV in the layout ``pandas.DataFrame.to_csv``
+    gives (the schema shared with the reference): a leading unnamed index
+    column, then the columns in order of first appearance."""
+    columns: List[str] = []
+    for rec in records:
+        columns.extend(k for k in rec if k not in columns)
+    writer = csv.writer(out, lineterminator="\n")
+    writer.writerow([""] + columns)
+    for i, rec in enumerate(records):
+        writer.writerow([i] + ["" if rec.get(c) is None else str(rec[c])
+                               for c in columns])
 
 
 def parse_sweep_spec(x: str) -> Tuple[float, float, int]:
@@ -332,7 +371,7 @@ def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior):
             if args.pipeline else None
         ),
     )
-    result.to_csv(sys.stdout)
+    write_csv(result, sys.stdout)
 
 
 def cli_main():

@@ -3,16 +3,12 @@ rounds-axis sharding, and the fused sample+decode pipeline.
 
 The reference's only distribution strategy is a CPU process pool over
 shots (``/root/reference/python/qldpc/misc/p_sweep.py:18-29``); this
-package is the TPU-native replacement (SURVEY.md §2.4).
+package is the device-mesh replacement (SURVEY.md §2.4).
 """
 from .check_shard import ShardedBPDecoder, ShardedTanner
 from .mesh import DATA_AXIS, MODEL_AXIS, init_distributed, make_mesh
 from .pipeline import StorageDecodePipeline
 from .rounds_shard import RoundsShardedSpacetimeBP
-
-# the BSR-kernel check-partition decoder lives in
-# exp_ldpc_tpu.decoders.bp_bsr_shard (importing it here would be circular:
-# it depends on .mesh for the axis names)
 
 __all__ = [
     "DATA_AXIS",

@@ -13,7 +13,7 @@ Sharding layout (contiguous check blocks, padded to equal size):
   * variables are conceptually replicated: the per-variable posterior is
     reconstituted every iteration by summing each shard's partial
     variable-totals with ONE ``psum`` over ``MODEL_AXIS`` — the only
-    communication in the decode loop ((V, S) f32 per iteration, riding ICI);
+    communication in the decode loop ((V, S) f32 per iteration);
   * the check-node update, the local variable-major segment sum, and the
     ``v2c = posterior[chk_vars] - c2v`` route-back are all local.
 

@@ -2,11 +2,11 @@
 
 The reference's entire distribution story is a multiprocessing Pool fanning
 shots over CPU workers (``/root/reference/python/qldpc/misc/p_sweep.py:18-29``).
-The TPU-native equivalent (SURVEY.md §2.4): shard the Monte-Carlo shot batch
+The device equivalent (SURVEY.md §2.4): shard the Monte-Carlo shot batch
 over a ``jax.sharding.Mesh`` data axis with ``shard_map``, reduce
-logical-failure counts with ``psum`` over ICI, and (for large codes) shard
-the check partition over a second model axis.  Multi-host slices join the
-same mesh via ``init_distributed`` (DCN for setup, ICI for the collectives).
+logical-failure counts with ``psum``, and (for large codes) shard the check
+partition over a second model axis.  Several hosts join the same mesh via
+``init_distributed``.
 """
 from __future__ import annotations
 
@@ -30,11 +30,10 @@ def init_distributed(
     """Join a multi-host run; returns this host's process index.
 
     Call once per host before :func:`make_mesh`; afterwards ``jax.devices()``
-    is the GLOBAL device list, so meshes built from it span the whole slice
-    and the scalar ``psum`` failure reductions ride ICI within the slice.
-    With no arguments, coordination parameters come from the environment /
-    TPU metadata (the standard ``jax.distributed.initialize()`` behavior) and
-    failures degrade to single-process (the expected case outside a pod).
+    is the GLOBAL device list, so meshes built from it span every host.
+    With no arguments, coordination parameters come from the environment
+    (the standard ``jax.distributed.initialize()`` behavior) and failures
+    degrade to single-process (the expected case on one host).
     With EXPLICIT coordination arguments a failure other than
     already-initialized re-raises — silently falling back would let every
     host run the full workload and report duplicated results as one.
@@ -57,15 +56,12 @@ def make_mesh(
     model_parallel: int = 1,
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """Mesh of shape (data, model) over the available devices.
+    """Mesh of shape (data, model) over the available devices, in order.
 
     ``model_parallel`` devices cooperate on one decode (check-partition
-    sharding) and should sit on the fastest links, so when the device list is
-    not given explicitly the (data, model) grid is laid out with
-    ``mesh_utils.create_device_mesh`` (ICI-topology-aware on real TPU
-    slices); an explicit ``devices`` sequence is reshaped in order.
+    sharding).  The cards of one host reach each other all to all at the
+    same rate, so the layout follows the device order alone.
     """
-    explicit = devices is not None
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
@@ -74,13 +70,5 @@ def make_mesh(
     if n % model_parallel != 0:
         raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
     shape = (n // model_parallel, model_parallel)
-    if not explicit and n_devices is None:
-        try:
-            from jax.experimental import mesh_utils
-
-            grid = mesh_utils.create_device_mesh(shape, devices=devices)
-            return Mesh(grid, (DATA_AXIS, MODEL_AXIS))
-        except Exception:
-            pass  # odd topologies: fall back to in-order reshape
     grid = np.asarray(devices).reshape(shape)
     return Mesh(grid, (DATA_AXIS, MODEL_AXIS))

@@ -3,7 +3,7 @@
 One jitted SPMD program per sweep point: per device shard — sample the
 storage circuit, build differenced spacetime syndromes, run batched BP,
 apply the final-round correction, test the logicals — then ``psum`` the
-failure count over the data axis.  This is the TPU-native replacement for
+failure count over the data axis.  This is the device-native replacement for
 the reference's fork-a-Pool-of-CPU-workers outer loop
 (``/root/reference/python/qldpc/misc/p_sweep.py:17-29``): the only
 host<->device traffic per point is one PRNG key in and two scalars out.
@@ -29,10 +29,13 @@ from ..circuits.ir import ParsedCircuit, parse_circuit
 from ..circuits.storage_sim import build_storage_simulation
 from ..core import QuantumCode
 from ..decoders.bp import _bp_core, dense_ops_device, priors_to_llr, resolve_use_matmul
+from ..decoders.select import bp_backend
 from ..decoders.spacetime_bp import _stbp_core
+from ..decoders.spacetime_bp_triton import fits_stbp_triton, stbp_triton_fixed
 from ..decoders.spacetime import SpacetimeCode
 from ..decoders.tanner import TannerELL
 from ..sampler.device import build_record_sampler
+from ..utils.compile_cache import enable_compilation_cache
 from .mesh import DATA_AXIS
 
 __all__ = ["StorageDecodePipeline"]
@@ -61,20 +64,9 @@ class StorageDecodePipeline:
     # iteration budgets, much cheaper XLA compile than the early-stop
     # while_loop (which pays a per-iteration syndrome check)
     early_stop: bool = False
-    # "bfloat16" halves message bytes in the bandwidth-bound spacetime check
-    # update (~1.4x wall-clock, statistically LER-neutral for min-sum) — the
-    # XLA path's knob; the Pallas backend below supersedes it when it fits
+    # "bfloat16" halves the message bytes of the bandwidth-bound spacetime
+    # check update, statistically LER-neutral for min-sum
     msg_dtype: str = "float32"
-    # "auto": use the VMEM-resident Pallas spacetime kernel on real TPU
-    # backends when it fits (measured 6.6x over the XLA path on 4-round
-    # HGP-225; f32, 100% hard-decision agreement), or the STREAMED
-    # round-axis BSR kernel (decoders/bp_bsr_spacetime.py) for codes past
-    # the ~1 MiB dense-operand crossover — the large-code memory-experiment
-    # path (mode "bposd" only); "xla" forces the XLA core; "pallas" forces
-    # the VMEM kernel (errors off-TPU); "stbsr" forces the streamed kernel
-    bp_backend: str = "auto"
-    # run the streamed kernel in Pallas interpret mode (CPU tests only)
-    stbsr_interpret: bool = False
     # > 0: the device step additionally ships (up to cap per device) the
     # syndromes+readouts of BP-unconverged shots to the host, where a full
     # BP+OSD decode replaces their plain-BP correction (the reference bposd
@@ -117,6 +109,9 @@ class StorageDecodePipeline:
     tier2_cap: Optional[int] = None
 
     def __post_init__(self):
+        devices = self.mesh.devices.flat if self.mesh is not None else None
+        backend = bp_backend(devices)
+        enable_compilation_cache()
         code = self.code
         sim = build_storage_simulation(
             self.rounds, self.noise_model, code,
@@ -135,16 +130,25 @@ class StorageDecodePipeline:
         # batched routing on the BASE code's Tanner graph — (rounds+1)x fewer
         # FLOPs than generic BP on the stacked spacetime matrix
         self.tanner = TannerELL.from_check_matrix(checks_sector)
+        # the spacetime-BP stage runs the Triton kernel where the platform
+        # decision picks it and the stage is fixed-iteration f32 on a base
+        # code the kernel fits; else the XLA core
+        self._kernel = (backend == "triton" and not self.early_stop
+                        and self.msg_dtype == "float32"
+                        and fits_stbp_triton(self.tanner))
         prior = np.zeros(self.spacetime.spacetime_check_matrix.shape[1])
         prior[: self.spacetime._datablock_size] = self.data_prior
         prior[self.spacetime._datablock_size:] = self.meas_prior
         self.prior_llr = priors_to_llr(prior)
 
+        # 0/1 operands of the parity products below (syndromes, corrections,
+        # logical flips): 0/1 times 0/1 summed in f32 is exact even where the
+        # GPU runs f32 dots in TF32, so they take the default precision
         self._Hz = jnp.asarray(checks_sector.toarray(), dtype=jnp.float32)  # (r, n)
         self._Lz = jnp.asarray(self._sector_logicals, dtype=jnp.float32)  # (k, n)
 
-        # dense one-hot BP operands as runtime args (multi-MB HLO constants
-        # make remote compiles pathologically slow)
+        # dense one-hot BP operands as runtime args: multi-MB HLO constants
+        # slow compiles down and are baked into every executable
         if resolve_use_matmul(self.tanner, "auto"):
             self._dense_ops = dense_ops_device(self.tanner)
         else:
@@ -187,53 +191,11 @@ class StorageDecodePipeline:
                 raise ValueError("osd_fallback_cap exceeds shots_per_device")
             self._osd = self._build_osd_corrector()
 
-        self._stbsr_sched = self._resolve_stbsr()
-        self._pallas = False if self._stbsr_sched is not None \
-            else self._resolve_backend()
-        if self._stbsr_sched is not None:
-            self._prior = self._prior_tree()  # rebuild: stbsr operand form
         self._step = self._build()
-
-    def _resolve_stbsr(self):
-        """BSRSchedule for the streamed spacetime kernel, or None.
-
-        Selected for mode "bposd" past the dense-operand crossover on real
-        TPU backends (the dense structured formulation's one-hot pair is
-        the BASE code's and blows up with n — decoders/select.py); forced
-        by ``bp_backend="stbsr"`` (with ``stbsr_interpret`` off-TPU)."""
-        if self.mode != "bposd" or self.rounds < 1:
-            if self.bp_backend == "stbsr":
-                raise ValueError(
-                    "bp_backend='stbsr' needs mode='bposd' and rounds >= 1")
-            return None
-        if self.bp_backend not in ("auto", "stbsr"):
-            return None
-        if self.early_stop:
-            if self.bp_backend == "stbsr":
-                raise ValueError("bp_backend='stbsr' requires "
-                                 "early_stop=False (global-exit kernel)")
-            return None
-        from ..decoders.bp import _dense_ops_bytes
-        from ..decoders.bp_bsr import BSRSchedule
-        from ..decoders.select import _BSR_MIN_OPS_BYTES, _stbsr_usable
-
-        if self.bp_backend == "stbsr":
-            return BSRSchedule.from_tanner(self.tanner)
-        if (_dense_ops_bytes(self.tanner) >= _BSR_MIN_OPS_BYTES
-                and _stbsr_usable(self.tanner)):
-            return BSRSchedule.from_tanner(self.tanner)
-        return None
 
     def _prior_tree(self):
         """The runtime prior arguments for the current mode (a pytree)."""
         if self.mode == "bposd":
-            sched = getattr(self, "_stbsr_sched", None)
-            if sched is not None:
-                from ..decoders.bp_bsr_spacetime import stbsr_operands
-
-                ep, pt, mp = stbsr_operands(
-                    sched, self.tanner, self.rounds, self.prior_llr)
-                return (jnp.asarray(ep), jnp.asarray(pt), jnp.asarray(mp))
             return (jnp.asarray(self.prior_llr),)
         final = priors_to_llr(np.full(self.num_data, self.data_prior))
         if self.mode == "bposd_hybrid":
@@ -269,31 +231,6 @@ class StorageDecodePipeline:
         return cls(self.code, self.rounds, opts,
                    (self.data_prior, self.meas_prior),
                    basis="x" if self.use_x_logicals else "z")
-
-    def _resolve_backend(self) -> bool:
-        from ..decoders.spacetime_bp_pallas import fits_stbp_pallas
-
-        if self.bp_backend == "xla":
-            return False
-        if self.mode == "bposd_single_shot":  # no spacetime-BP stage
-            if self.bp_backend == "pallas":
-                raise ValueError(
-                    "bp_backend='pallas' applies to the spacetime-BP stage; "
-                    "bposd_single_shot has none")
-            return False
-        if self.early_stop:  # kernel is fixed-iteration only
-            if self.bp_backend == "pallas":
-                raise ValueError("bp_backend='pallas' requires early_stop=False")
-            return False
-        fits = fits_stbp_pallas(self.tanner, self.rounds, 128)
-        if self.bp_backend == "pallas":
-            if not fits:
-                raise ValueError("spacetime program too large for the Pallas kernel")
-            return True
-        # auto: real TPU only (the Mosaic kernel has no CPU lowering)
-        devices = self.mesh.devices.flat if self.mesh is not None else jax.devices()
-        on_tpu = all(d.platform == "tpu" for d in devices)
-        return fits and on_tpu
 
     def _device_step(self, key, dense_ops, noise_args, prior_llr):
         """Single-shard step: key -> (failures, shots, bp_unconverged)."""
@@ -350,9 +287,8 @@ class StorageDecodePipeline:
             correction = jnp.mod(hard_f.T.astype(jnp.float32) + acc, 2.0)
         else:
             # spacetime-BP stage (modes "bposd" and "bposd_hybrid")
-            stbsr = self._stbsr_sched
-            if stbsr is None:
-                prior_main = prior_llr[0]
+            prior_main = prior_llr[0]
+            method = {"ps": "ps", "psl": "ps", "ms": "ms", "msl": "ms"}[self.bp_method]
             dense_main = dense_ops[0]
             final = jnp.mod(readout @ self._Hz.T, 2.0)  # (S, r)
             synd = jnp.concatenate([history, final[:, None, :]], axis=1)
@@ -363,29 +299,15 @@ class StorageDecodePipeline:
 
             def run_stbp(s_in, n_iter):
                 """(S', Bst*r) syndromes -> (hard (S', Vst), conv (S',))."""
-                if stbsr is not None:
-                    from ..decoders.bp_bsr_spacetime import stbsr_decode
-
-                    method = {"ps": "ps", "psl": "ps", "ms": "ms",
-                              "msl": "ms"}[self.bp_method]
-                    h, _p, c, _i = stbsr_decode(
-                        stbsr, rounds, prior_llr[0], prior_llr[1],
-                        prior_llr[2], s_in.T, method, n_iter,
-                        float(self.ms_scaling_factor), False, 128,
-                        self.stbsr_interpret)
+                if self._kernel:
+                    h, _p, c, _i = stbp_triton_fixed(
+                        self.tanner, rounds, prior_main, s_in.T, method,
+                        n_iter, float(self.ms_scaling_factor))
                     return h.T, c
-                if self._pallas:
-                    from ..decoders.spacetime_bp_pallas import stbp_pallas_fixed
-
-                    h, _p, c, _i = stbp_pallas_fixed(
-                        self.tanner, rounds, prior_main, s_in.T,
-                        self.bp_method, n_iter,
-                        float(self.ms_scaling_factor))
-                else:
-                    h, _p, c, _i = _stbp_core(
-                        self.tanner, rounds, prior_main, s_in.T,
-                        self.bp_method, n_iter, msf, self.early_stop,
-                        "auto", dense_main, self.msg_dtype)
+                h, _p, c, _i = _stbp_core(
+                    self.tanner, rounds, prior_main, s_in.T,
+                    self.bp_method, n_iter, msf, self.early_stop,
+                    "auto", dense_main, self.msg_dtype)
                 return h.T, c
 
             hard, conv = run_stbp(synd, self.max_iter if self.tier1_iters <= 0
@@ -443,51 +365,54 @@ class StorageDecodePipeline:
         )
 
     def _build(self):
+        """Jit the step; sets ``self._jitted`` and ``self._step_args`` (key
+        -> the jitted function's arguments) and returns key -> outputs."""
         dense = self._dense_tree()
         fallback = self.osd_fallback_cap > 0
         if self.mesh is None:
-            step = jax.jit(self._device_step)
-            if not fallback:
-                return lambda key: tuple(
-                    int(x) for x in step(key, dense, self._noise_args, self._prior))
+            self._jitted = jax.jit(self._device_step)
+            self._step_args = lambda key: (
+                key, dense, self._noise_args, self._prior)
+        else:
+            mesh = self.mesh
 
-            def run_local(key):
-                f, s, u, hist, readout, valid = step(
-                    key, dense, self._noise_args, self._prior)
-                return int(f), int(s), int(u), hist, readout, valid
+            def sharded(keys, dense_ops, noise_args, prior_llr):
+                out = self._device_step(keys[0], dense_ops, noise_args, prior_llr)
+                f = jax.lax.psum(out[0], DATA_AXIS)
+                s = jax.lax.psum(out[1], DATA_AXIS)
+                u = jax.lax.psum(out[2], DATA_AXIS)
+                return (f, s, u) + out[3:]
 
-            return run_local
-
-        mesh = self.mesh
-
-        def sharded(keys, dense_ops, noise_args, prior_llr):
-            out = self._device_step(keys[0], dense_ops, noise_args, prior_llr)
-            f = jax.lax.psum(out[0], DATA_AXIS)
-            s = jax.lax.psum(out[1], DATA_AXIS)
-            u = jax.lax.psum(out[2], DATA_AXIS)
-            return (f, s, u) + out[3:]
-
-        # check_vma=False: the BP while_loop carry starts from unvarying
-        # constants (priors) and becomes data-varying inside the loop, which
-        # the varying-manual-axes checker rejects; the computation is still
-        # correctly per-shard SPMD.
-        out_specs = ((P(), P(), P()) + (P(DATA_AXIS),) * 3) if fallback else P()
-        mapped = jax.shard_map(
-            sharded,
-            mesh=mesh,
-            in_specs=(P(DATA_AXIS), P(), P(), P()),
-            out_specs=out_specs,
-            check_vma=False,
-        )  # dense/prior pytrees ride the unsharded P() specs
-        jitted = jax.jit(mapped)
-        n_data = mesh.shape[DATA_AXIS]
+            # check_vma=False: the BP while_loop carry starts from unvarying
+            # constants (priors) and becomes data-varying inside the loop,
+            # which the varying-manual-axes checker rejects; the computation
+            # is still correctly per-shard SPMD.
+            out_specs = ((P(), P(), P()) + (P(DATA_AXIS),) * 3) if fallback else P()
+            mapped = jax.shard_map(
+                sharded,
+                mesh=mesh,
+                in_specs=(P(DATA_AXIS), P(), P(), P()),
+                out_specs=out_specs,
+                check_vma=False,
+            )  # dense/prior pytrees ride the unsharded P() specs
+            self._jitted = jax.jit(mapped)
+            n_data = mesh.shape[DATA_AXIS]
+            self._step_args = lambda key: (
+                jax.random.split(key, n_data), dense, self._noise_args,
+                self._prior)
 
         def run(key):
-            keys = jax.random.split(key, n_data)
-            out = jitted(keys, dense, self._noise_args, self._prior)
+            out = self._jitted(*self._step_args(key))
             return tuple(int(x) for x in out[:3]) + tuple(out[3:])
 
         return run
+
+    def memory_analysis(self):
+        """``compiled.memory_analysis()`` of the jitted sample+decode step
+        (lowers and compiles it again; the compile caches make that cheap
+        after the first run)."""
+        args = self._step_args(jax.random.PRNGKey(0))
+        return self._jitted.lower(*args).compile().memory_analysis()
 
     def run(self, key):
         """key -> (logical_failures, total_shots, bp_unconverged_shots).

@@ -9,8 +9,8 @@ textbook 1-D halo pattern, so instead of the generic check-partition psum
 (``parallel/check_shard.py``, a full (V, S) all-reduce per iteration) the
 round blocks shard over the mesh ``MODEL_AXIS`` and each flooding iteration
 exchanges exactly TWO boundary message rows of shape (r, S_local) with the
-neighbor devices via ``lax.ppermute`` — nearest-neighbor traffic that rides
-ICI, independent of the number of rounds.
+neighbor devices via ``lax.ppermute`` — nearest-neighbor traffic,
+independent of the number of rounds.
 
 The math is the fixed-iteration structured kernel
 (:func:`exp_ldpc_tpu.decoders.spacetime_bp._stbp_core` with
@@ -18,7 +18,7 @@ The math is the fixed-iteration structured kernel
 f32 rounding (XLA reassociates the batched routing einsum differently for
 different local block counts; measured ~1e-6 posterior deltas after 12
 iterations, hard decisions identical off the knife-edge): each device runs
-the base-code one-hot MXU routing on its local round blocks; the halo rows
+the base-code one-hot matmul routing on its local round blocks; the halo rows
 are the ``v2c`` message of the last local measurement variable (consumed by
 the next device's first check block) and the ``c2v`` message of the first
 local check block (consumed by the previous device's last measurement
@@ -109,14 +109,18 @@ def _stbp_rounds_sharded(
             ).reshape(K, r, Dc + 2, S)
             c2v_data = c2v_ext[:, :, :Dc, :]
 
-            # data-variable update: base-code MXU routing per local block
+            # data-variable update: base-code matmul routing per local
+            # block.  HIGHEST: these dots carry LLRs, which TF32 would
+            # otherwise round
             flat = c2v_data.reshape(K, r * Dc, S)
             totals = jnp.einsum(
-                "vk,bks->bvs", Mj, flat, preferred_element_type=jnp.float32
+                "vk,bks->bvs", Mj, flat, preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
             posterior_d = data_llr[:, :, None] + totals  # (K, n, S)
             back = jnp.einsum(
-                "kv,bvs->bks", Gj, posterior_d, preferred_element_type=jnp.float32
+                "kv,bvs->bks", Gj, posterior_d, preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
             v2c_data_new = jnp.where(
                 mask4, back.reshape(K, r, Dc, S) - c2v_data, _BIG

@@ -1,6 +1,6 @@
-"""JAX/TPU Pauli-frame sampler.
+"""JAX Pauli-frame sampler for the device.
 
-TPU-native replacement for Stim's batch sampler (consumed by the reference at
+Device-native replacement for Stim's batch sampler (consumed by the reference at
 ``/root/reference/python/qldpc/misc/_experiment.py:193-197``), sharing exact
 semantics with the CPU oracle in :mod:`exp_ldpc_tpu.sampler.reference` (see
 that module's docstring for the frame algebra).
@@ -8,8 +8,8 @@ that module's docstring for the frame algebra).
 Design for the hardware/XLA:
   * the shot axis is the vector axis: frames are (Q, S) uint8 bit planes, and
     every gate/noise layer is SCATTER-FREE — a full-plane masked XOR with
-    gathered partners/draws (static row maps; XLA scatters serialize on TPU,
-    measured ~40x slow) — so the whole circuit jits into one fused program;
+    gathered partners/draws (static row maps; a scatter serializes updates
+    to one row) — so the whole circuit jits into one fused program;
   * the structural REPEAT block from :class:`ParsedCircuit` lowers to
     ``lax.scan`` — compile time is independent of the round count and XLA
     double-buffers the measurement-record writes (``spacetime_code``'s rounds
@@ -17,7 +17,7 @@ Design for the hardware/XLA:
   * noise channels draw from ``jax.random`` with per-op fold_in keys, so the
     sampler is deterministic given (key, circuit);
   * detector/observable evaluation is a single (S, M) x (M, D) matmul on the
-    record, done in f32 on the MXU and reduced mod 2.
+    record, done in f32 (0/1 operands: exact) and reduced mod 2.
 
 The record layout matches the reference contract (rounds of
 [x_checks..., z_checks...] then data readout, ``storage_sim.py:187-196``).
@@ -43,8 +43,8 @@ def _row_maps(Q: int, t_bytes: bytes, n: int):
     Returns (mask (Q,1) bool, inv (Q,) int32): mask marks target rows; inv
     maps a target row to its position in the compact target list (0
     elsewhere), so a compact (n, S) per-site draw expands to the full plane
-    with ONE gather — XLA scatters serialize on TPU (measured ~40x slow,
-    docs/DESIGN.md), so every frame update here is gather + masked XOR.
+    with ONE gather — a scatter serializes updates to one row
+    (docs/DESIGN.md §2), so every frame update here is gather + masked XOR.
     """
     t = np.frombuffer(t_bytes, dtype=np.int64).astype(np.int64)
     mask = np.zeros((Q, 1), dtype=bool)
@@ -340,6 +340,7 @@ class DeviceSampler:
 
     def sample_detectors(self, key, append_observables: bool = False) -> jnp.ndarray:
         record = self.sample(key).astype(jnp.float32)
+        # 0/1 x 0/1 parity products: exact in TF32, default precision
         det = jnp.mod(record @ self._det, 2.0).astype(jnp.uint8)
         if append_observables:
             obs = jnp.mod(record @ self._obs, 2.0).astype(jnp.uint8)

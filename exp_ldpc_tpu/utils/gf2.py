@@ -6,7 +6,7 @@ Replaces the `galois` dependency used by the reference
 uint64 word-packed implementation: rows are packed 64 columns per word and all
 row operations are word-wise XORs, giving a ~64x win over naive byte-wise
 elimination.  This is host-side (numpy) code: code construction is one-time
-combinatorics and does not benefit from the TPU.
+combinatorics and does not benefit from the device.
 
 All public functions accept/return plain numpy 0/1 integer arrays (any integer
 dtype); packing is internal.

@@ -3,7 +3,7 @@
 The reference has NO observability layer: its only instrumentation is a
 per-sweep-point walltime column in the results CSV
 (``/root/reference/python/qldpc/misc/p_sweep.py:25,30-33``) and ad-hoc
-``warnings.warn`` calls (SURVEY.md §5).  This module is the TPU build's
+``warnings.warn`` calls (SURVEY.md §5).  This module is the package's
 first-class replacement:
 
   * :func:`get_logger` — package-namespaced loggers; level from the
@@ -13,18 +13,21 @@ first-class replacement:
   * :func:`profiler_trace` — context manager around ``jax.profiler`` that
     dumps a TensorBoard-viewable device trace of everything inside it;
   * :func:`timed` — walltime context manager that logs (and optionally
-    accumulates into a :class:`Metrics`).
+    accumulates into a :class:`Metrics`);
+  * :func:`gpu_power_report` — the card's name and power limit, to print
+    beside every device number.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
 
-__all__ = ["get_logger", "Metrics", "profiler_trace", "timed"]
+__all__ = ["get_logger", "Metrics", "profiler_trace", "timed", "gpu_power_report"]
 
 _ROOT = "exp_ldpc_tpu"
 _configured = False
@@ -129,3 +132,20 @@ def timed(name: str, *, metrics: Optional[Metrics] = None,
             metrics.add(f"{name}_s", dt)
             metrics.add(f"{name}_calls", 1)
         (logger or get_logger("timing")).log(level, "%s took %.4fs", name, dt)
+
+
+def gpu_power_report() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    (one line per card), or ``""`` where there is no ``nvidia-smi``.
+
+    A card may be set below its maximum power limit and then runs slower
+    under load, so every device time is reported beside this line.  Runs
+    as a child process that never imports JAX."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    return out.stdout.strip()

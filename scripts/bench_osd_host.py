@@ -3,13 +3,13 @@
 
 Quantifies the scaling wall of the bposd contract (OSD touches only the
 BP-unconverged shots, reference ``misc/_experiment.py:62-83``): at the top
-circuit-noise campaign point ~23% of shots ship to host OSD, so the
-sustained campaign rate is bounded by host-OSD shots/s.  This measures the
+circuit-noise campaign points a large share of shots ship to host OSD, so
+the sustained campaign rate is bounded by host-OSD shots/s.  This measures the
 threaded C++ kernel (``native/gf2_kernels.cpp::osd_batch``) on the
 spacetime matrix the campaign actually decodes (HGP-225, rounds=4), with
 posteriors taken from genuinely BP-unconverged shots under circuit noise.
 
-  python scripts/bench_osd_host.py --out artifacts/osd_host_throughput.jsonl
+  python scripts/bench_osd_host.py --out chiprun_out/osd_host_throughput.jsonl
 """
 import argparse
 import json
@@ -32,7 +32,7 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_platforms", "cpu")  # host benchmark: no TPU
+    jax.config.update("jax_platforms", "cpu")  # host benchmark: no device
 
     from exp_ldpc_tpu.circuits.noise import circuit_noise
     from exp_ldpc_tpu.circuits.storage_sim import build_storage_simulation

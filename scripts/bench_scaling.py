@@ -2,8 +2,8 @@
 """Decode-throughput scaling harness (BASELINE.md scaling row).
 
 Measures end-to-end sample+decode throughput of the fused Monte-Carlo
-pipeline on growing device meshes.  On real hardware this scales over TPU
-chips (shot sharding over DATA_AXIS, `psum` reduction); with
+pipeline on growing device meshes.  On real hardware this scales over the
+cards (shot sharding over DATA_AXIS, `psum` reduction); with
 ``--virtual N`` it runs on N virtual CPU devices to exercise the same SPMD
 program without hardware (useful for CI and single-host development; note
 virtual devices SHARE one host's cores, so total throughput stays roughly

@@ -1,18 +1,13 @@
 #!/usr/bin/env python
-"""Paired two-tier adaptive-decode measurement (VERDICT r4 item 2).
+"""Paired two-tier adaptive-decode measurement on a large code.
 
-Two regimes, same seeds:
+Runs the production pipeline on the n=4862 cyclic lifted product with
+fixed-iteration decode and with the two-tier adaptive decode
+(``tier1_iters``), same seeds, and prints failures, unconverged shots and
+walltime for each.  The failure counts should match; whether the tiers
+pay is what the walltimes say.
 
-  * flagship HGP-225 pheno campaign point (validate_ler writes these rows
-    to artifacts/two_tier_v5e.jsonl): LER identical by construction; the
-    campaign walltime there is bounded by the OSD ship machinery, not
-    decode (the fused 48-iteration decode is ~3% of the point walltime),
-    so two-tier cannot and does not move it — recorded honestly;
-  * the LARGE-code production pipeline (this script: n=4862 cyclic LP,
-    streamed spacetime BSR backend), where decode dominates the step —
-    the regime the adaptive tiers exist for.
-
-  python scripts/bench_two_tier.py --out artifacts/two_tier_v5e.jsonl
+  python scripts/bench_two_tier.py --out chiprun_out/two_tier.jsonl
 """
 import argparse
 import json

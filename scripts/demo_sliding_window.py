@@ -8,7 +8,7 @@ decodes a LONG memory experiment (HGP-225, rounds >= 64) in O(window)
 memory: one compiled window program reused ceil(rounds/commit) times,
 walltime scaling linearly in rounds at constant per-round cost.
 
-  python scripts/demo_sliding_window.py --out artifacts/sliding_window_v5e.jsonl
+  python scripts/demo_sliding_window.py --out chiprun_out/sliding_window.jsonl
 """
 import argparse
 import json

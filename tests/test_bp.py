@@ -41,7 +41,7 @@ def test_jax_matches_numpy(method, seed):
 
 @pytest.mark.parametrize("method", ["ps", "ms"])
 def test_matmul_formulation_agrees_with_gather(method):
-    """The MXU-matmul message routing must agree with the gather routing on
+    """The one-hot matmul message routing must agree with the gather routing on
     every converged shot (both satisfy the syndrome exactly) and on the vast
     majority of hard decisions overall (f32 ordering may differ on
     non-converged shots)."""

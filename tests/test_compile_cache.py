@@ -15,8 +15,10 @@ def fresh_module():
 
 def test_sets_default_dir_once(tmp_path, monkeypatch):
     monkeypatch.delenv("EXP_LDPC_TPU_NO_COMPILE_CACHE", raising=False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     mod = fresh_module()
-    monkeypatch.setattr(mod, "_DEFAULT_DIR", str(tmp_path / "cc"))
+    monkeypatch.setattr(mod, "DEFAULT_CACHE_DIR", str(tmp_path / "cc"))
     prev = jax.config.jax_compilation_cache_dir
     try:
         jax.config.update("jax_compilation_cache_dir", None)
@@ -31,6 +33,7 @@ def test_sets_default_dir_once(tmp_path, monkeypatch):
 
 def test_respects_existing_user_config(tmp_path, monkeypatch):
     monkeypatch.delenv("EXP_LDPC_TPU_NO_COMPILE_CACHE", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     mod = fresh_module()
     prev = jax.config.jax_compilation_cache_dir
     try:

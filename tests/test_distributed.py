@@ -1,4 +1,4 @@
-"""Multi-process DCN path (parallel/dcn_dryrun.py): two real
+"""Multi-process path (parallel/dcn_dryrun.py): two real
 ``jax.distributed`` processes on CPU, shot-sharded pipeline psum across
 the process boundary, counts identical to a single-process run.
 

@@ -1,7 +1,7 @@
 """Statistical parity tests between the decode paths.
 
 The reference has NO end-to-end decoder tests at all (SURVEY.md §4:
-"the decoder drivers in misc/ have no tests"); this file adds what the TPU
+"the decoder drivers in misc/ have no tests"); this file adds what the device
 build needs most — agreement between the fully-fused on-device pipeline
 (device sampler + batched device BP) and the host oracle chain (CPU
 Pauli-frame sampler + driver decode), within binomial error bars, plus

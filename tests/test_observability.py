@@ -79,4 +79,4 @@ def test_p_sweep_checkpoint_resume(tmp_path):
     # the first two records were NOT recomputed (identical rows preserved)
     assert [l["p_ph"] for l in lines2[:2]] == [l["p_ph"] for l in lines1]
     assert [l["failures"] for l in lines2[:2]] == [l["failures"] for l in lines1]
-    assert sorted(df2["p_ph"].tolist()) == pytest.approx(ps.tolist())
+    assert sorted(r["p_ph"] for r in df2) == pytest.approx(ps.tolist())

@@ -37,16 +37,16 @@ def test_pipeline_sweep_schema_and_counts(code):
     samples (ceil-to-batch, reference p_sweep.py:20-21 semantics report the
     TRUE count), and failure rates grow with p."""
     ps = np.array([0.002, 0.02])
-    df = p_sweep(p_values=ps,
-                 pipeline={"mesh_devices": 1, "shots_per_device": 32},
-                 **common_kwargs(code))
-    assert list(df["p_ph"]) == pytest.approx(ps.tolist())
+    recs = p_sweep(p_values=ps,
+                   pipeline={"mesh_devices": 1, "shots_per_device": 32},
+                   **common_kwargs(code))
+    assert [r["p_ph"] for r in recs] == pytest.approx(ps.tolist())
     for col in ("p_ph", "failures", "samples", "walltime", "max_iter",
                 "osd_method"):
-        assert col in df.columns
-    assert (df["samples"] >= 64).all()
-    assert (df["samples"] % 32 == 0).all()
-    assert (df["failures"] <= df["samples"]).all()
+        assert all(col in r for r in recs)
+    assert all(r["samples"] >= 64 for r in recs)
+    assert all(r["samples"] % 32 == 0 for r in recs)
+    assert all(r["failures"] <= r["samples"] for r in recs)
 
 
 def test_pipeline_sweep_matches_run_simulation(code):
@@ -59,8 +59,8 @@ def test_pipeline_sweep_matches_run_simulation(code):
                       pipeline={"mesh_devices": 1, "shots_per_device": 256},
                       **kw)
     df_ref = p_sweep(p_values=ps, use_device_sampler=False, **kw)
-    r_p = df_pipe["failures"][0] / df_pipe["samples"][0]
-    r_r = df_ref["failures"][0] / df_ref["samples"][0]
+    r_p = df_pipe[0]["failures"] / df_pipe[0]["samples"]
+    r_r = df_ref[0]["failures"] / df_ref[0]["samples"]
     sigma = np.sqrt(max(r_r * (1 - r_r), 1e-3) / n)
     assert abs(r_p - r_r) < 5 * sigma + 0.02
 
@@ -70,7 +70,7 @@ def test_pipeline_sweep_sharded(code):
     df = p_sweep(p_values=np.array([0.01]),
                  pipeline={"mesh_devices": 8, "shots_per_device": 16},
                  **common_kwargs(code, samples=128))
-    assert df["samples"][0] == 128
+    assert df[0]["samples"] == 128
 
 
 def test_pipeline_sweep_rejects_other_modes(code):
@@ -105,5 +105,5 @@ def test_pipeline_sweep_accepts_fused_modes(code, mode):
                  pipeline={"mesh_devices": 1, "shots_per_device": 64},
                  **common_kwargs(code, decoder_mode=mode, rounds=2))
     assert len(df) == 1
-    assert int(df["samples"].iloc[0]) >= 64
-    assert 0 <= int(df["failures"].iloc[0]) <= int(df["samples"].iloc[0])
+    assert int(df[0]["samples"]) >= 64
+    assert 0 <= int(df[0]["failures"]) <= int(df[0]["samples"])

@@ -130,13 +130,12 @@ def test_make_bp_decoder_routing(bb72):
         make_bp_decoder, qc_kwargs_for_code, qc_kwargs_single_shot)
     from scipy import sparse
 
-    # small QC codes stay on the generic MXU matmul formulation (measured
-    # faster below the dense-operand threshold: gross 133M vs 105M it*sh/s)
+    # small QC codes stay on the generic one-hot matmul formulation
+    # (below the dense-operand threshold)
     dec = make_bp_decoder(bb72.checks.z, error_rate=0.01,
                           **qc_kwargs_for_code(bb72, "z"))
     assert isinstance(dec, BPDecoder)
-    # above the threshold the roll kernel takes over (18.7M vs 3.8M on
-    # QC-LP [[1054,140]])
+    # above the threshold the roll kernel takes over
     shifts = [[1, 2, 4, 8, 16], [5, 10, 20, 9, 18], [25, 19, 7, 14, 28]]
     big = qc_lifted_product_code(shifts, 31, compute_logicals=False)
     dec = make_bp_decoder(big.checks.z, error_rate=0.01,

@@ -40,7 +40,7 @@ def test_sharded_matches_unsharded_bit_exact(code, rounds, method, msf):
 
     ref = SpacetimeBPDecoder.from_check_matrix(
         H, rounds, error_rate=0.01, max_iter=12, bp_method=method,
-        ms_scaling_factor=msf, early_stop=False, backend="xla",
+        ms_scaling_factor=msf, early_stop=False,
         formulation="matmul",
     )
     rhard, rpost, rconv, riters = ref.decode_batch(synd)
@@ -88,7 +88,7 @@ def test_sharded_single_model_shard_degenerates(code):
     hard, _post, conv, _ = dec.decode_batch(synd)
     ref = SpacetimeBPDecoder.from_check_matrix(
         H, 4, error_rate=0.01, max_iter=8, bp_method="ms",
-        ms_scaling_factor=0.625, early_stop=False, backend="xla",
+        ms_scaling_factor=0.625, early_stop=False,
         formulation="matmul",
     )
     rhard, _rp, rconv, _ri = ref.decode_batch(synd)

@@ -129,13 +129,13 @@ def test_bf16_messages_statistically_equivalent(small_code):
 
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ps", 0.0), ("ms", 0.0)])
 def test_pallas_kernel_matches_core(small_code, method, msf):
-    """The VMEM-resident Pallas spacetime kernel (interpret mode on CPU)
-    reproduces the XLA structured core's hard decisions and convergence."""
+    """The Pallas-Triton spacetime kernel (interpret mode on CPU) reproduces
+    the XLA structured core's hard decisions and convergence."""
     import jax.numpy as jnp
 
     from exp_ldpc_tpu.decoders.bp import priors_to_llr
     from exp_ldpc_tpu.decoders.spacetime_bp import _stbp_core
-    from exp_ldpc_tpu.decoders.spacetime_bp_pallas import stbp_pallas_fixed
+    from exp_ldpc_tpu.decoders.spacetime_bp_triton import stbp_triton_fixed
     from exp_ldpc_tpu.decoders.tanner import TannerELL
 
     H = small_code.checks.z
@@ -147,21 +147,23 @@ def test_pallas_kernel_matches_core(small_code, method, msf):
     prior = np.concatenate([np.full((rounds + 1) * n, 0.01), np.full(rounds * r, 0.005)])
     prior_llr = jnp.asarray(priors_to_llr(prior))
     rng = np.random.default_rng(5)
-    S = 160  # not a multiple of the 128 shot block: exercises padding
+    S = 40  # not a multiple of the 16-shot block: exercises padding
     errs = (rng.random((S, Hst.shape[1])) < 0.02).astype(np.uint8)
     synd = jnp.asarray(((errs @ Hst.T.toarray()) % 2).astype(np.uint8).T)
     h1, _p1, c1, _ = _stbp_core(tanner, rounds, prior_llr, synd, method, 12,
                                 jnp.float32(msf), False, "matmul")
-    h2, _p2, c2, _ = stbp_pallas_fixed(tanner, rounds, prior_llr, synd, method, 12,
-                                       msf, shot_block=128, interpret=True)
+    h2, _p2, c2, _ = stbp_triton_fixed(tanner, rounds, prior_llr, synd, method, 12,
+                                       msf, interpret=True)
     assert (np.asarray(h1) == np.asarray(h2)).all()
     assert (np.asarray(c1) == np.asarray(c2)).all()
 
 
 def test_pipeline_backend_resolution(small_code):
-    """auto backend falls back to XLA off-TPU; explicit pallas off-TPU or
-    with early_stop raises."""
+    """The pipeline asks the one platform decision (select.bp_backend): it
+    builds on the CPU, and a platform with no backend raises at
+    construction instead of running unchecked formulations."""
     from exp_ldpc_tpu.circuits.noise import depolarizing_noise
+    from exp_ldpc_tpu.decoders import select
     from exp_ldpc_tpu.parallel.pipeline import StorageDecodePipeline
 
     import exp_ldpc_tpu.codes.hgp as hgp
@@ -169,9 +171,18 @@ def test_pipeline_backend_resolution(small_code):
     kw = dict(code=code, rounds=2, noise_model=depolarizing_noise(0.01, 0.01),
               data_prior=0.007, meas_prior=0.007, shots_per_device=8, max_iter=4)
     pipe = StorageDecodePipeline(**kw)
-    assert pipe._pallas is False  # CPU backend in tests
-    with pytest.raises(ValueError):
-        StorageDecodePipeline(bp_backend="pallas", early_stop=True, **kw)
+    assert select.bp_backend() == "xla"  # CPU backend in tests
+    assert pipe._kernel is False  # the XLA core on the CPU
+    f, s, _u = pipe.run(__import__("jax").random.PRNGKey(0))
+    assert s == 8 and 0 <= f <= 8
+
+    class _Dev:
+        platform = "metal"
+
+    with pytest.raises(ValueError, match="no BP backend"):
+        select.bp_backend([_Dev()])
+    with pytest.raises(TypeError):
+        StorageDecodePipeline(bp_backend="pallas", **kw)  # option removed
 
 
 def test_decoder_fixed_iteration_and_backend_options(small_code):
@@ -186,12 +197,16 @@ def test_decoder_fixed_iteration_and_backend_options(small_code):
     synd = (errs @ Hst.T) % 2
     dec = SpacetimeBPDecoder.from_check_matrix(
         H, rounds, error_rate=0.015, max_iter=24, bp_method="ms",
-        ms_scaling_factor=0.625, early_stop=False, backend="xla")
+        ms_scaling_factor=0.625, early_stop=False)
     hard, _post, conv, iters = dec.decode_batch(synd)
     assert (iters == 24).all()  # fixed-iteration mode
     ok = ((hard @ Hst.T) % 2 == synd).all(axis=1)
     assert (ok == conv).all()
-    with pytest.raises(ValueError):
-        SpacetimeBPDecoder.from_check_matrix(
-            H, rounds, error_rate=0.01, backend="pallas"  # needs early_stop=False
-        ).decode_batch(synd)
+    # the factory builds the same decoder through the platform decision
+    from exp_ldpc_tpu.decoders.select import make_spacetime_bp_decoder
+
+    dec2 = make_spacetime_bp_decoder(
+        H, rounds, error_rate=0.015, max_iter=24, bp_method="ms",
+        ms_scaling_factor=0.625, early_stop=False)
+    hard2, _p2, conv2, _i2 = dec2.decode_batch(synd)
+    assert (hard2 == hard).all() and (conv2 == conv).all()
